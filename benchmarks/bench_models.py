@@ -1,6 +1,6 @@
 """Model-pipeline benchmarks: STFT, ISTFT, OverlapSave, FilterFFT.
 
-The reference has no models — these pipelines are the TPU-native
+The reference has no models — these pipelines are the
 extension tier (dsc_tpu/models/), each running as ONE fused XLA program.
 Throughput is reported in Msamples/s of *input* audio (the number a
 streaming-DSP user cares about) plus the per-call device time, vs the
@@ -51,16 +51,14 @@ def main():
 
     dsc.init(int(8 * 2**30))
     rng = np.random.default_rng(42)
-    # DSC_BENCH_QUICK=1: tiny shapes, k_base=2 — CPU-feasible smoke of the
-    # full suite logic (the recorded numbers are then meaningless)
+    # DSC_BENCH_QUICK=1: tiny shapes, one timed call — CPU-feasible smoke
+    # of the full suite logic (the recorded numbers are then meaningless)
     quick = bool(int(os.environ.get('DSC_BENCH_QUICK', '0')))
     sh = (lambda n: max(n // 64, 4096)) if quick else (lambda n: n)
     if quick:
         import utils
 
         utils.BENCH_STEPS = 1
-        global bench
-        bench = lambda fn: utils.bench(fn, k_base=2)  # noqa: E731
 
     print('== STFT (frame=1024, hop=256, hann, log-power) ==')
     for name, b, n in (('1x2^20', 1, sh(2**20)), ('16x2^18', 16, sh(2**18))):

@@ -1,4 +1,4 @@
-/* dsc_tpu C ABI — the C front door to the TPU-native runtime.
+/* dsc_tpu C ABI — the C front door to the JAX/XLA runtime.
  *
  * Rebuild of the reference C ABI surface (reference dsc/include/dsc.h:85-428).
  * The reference exposes a C++ core through extern "C"; here the runtime is

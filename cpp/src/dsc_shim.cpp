@@ -2,7 +2,7 @@
 // dsc_tpu.capi (the Python half of the front door).
 //
 // The reference stack is Python -> ctypes -> C++ core (_bindings.py:31-35);
-// the TPU-native stack inverts it: C/C++ -> embedded Python -> JAX/PJRT.
+// this stack inverts it: C/C++ -> embedded Python -> JAX/PJRT.
 // Both front-ends share one runtime. All Python access is GIL-guarded so
 // the ABI is callable from any thread.
 

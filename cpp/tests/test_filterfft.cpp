@@ -1,4 +1,4 @@
-// C++-API parity harness (BASELINE.json config 5): the README filterFFT
+// C++-API parity harness (BASELINE.md config 5): the README filterFFT
 // pipeline through dsc::tensor<T>, cross-checked against a direct
 // time-domain convolution computed in C++.
 

@@ -1,7 +1,7 @@
 """Python half of the C ABI front door.
 
 The reference exposes a C ABI (dsc.h:85-428) over its C++ core and binds
-Python to it via ctypes; the TPU-native build inverts the stack: the
+Python to it via ctypes; this build inverts the stack: the
 runtime IS Python/JAX (that's where PJRT, XLA and the plan cache live), and
 C/C++ callers reach it through an embedded interpreter
 (cpp/src/dsc_shim.cpp). Both front-ends therefore share one context, one

@@ -1,6 +1,6 @@
 """Dtype system for dsc_tpu.
 
-TPU-native rebuild of the reference dtype system
+Rebuild of the reference dtype system
 (reference: dsc/include/dsc_dtype.h:51-78, python/dsc/dtype.py).
 
 Four dtypes — F32, F64, C32, C64 — with the reference's exact binary

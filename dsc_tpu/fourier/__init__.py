@@ -1,6 +1,6 @@
 """Public FFT API for dsc_tpu.
 
-TPU-native rebuild of the reference FFT surface
+Rebuild of the reference FFT surface
 (dsc.h:384-424, dsc/src/dsc.cpp:1955-2340):
 
 - fft/ifft/rfft/irfft over any axis of a rank<=4 tensor
@@ -19,11 +19,10 @@ from typing import Optional
 
 import numpy as np
 
-from .. import interop, tracing
+from .. import tracing
 from ..dtype import DTYPE_TO_NP, Dtype
-from ..planar import Planar
 from ..tensor import Tensor, _finish
-from . import config, core, plan
+from . import core, plan
 from .plan import next_pow2
 
 __all__ = [
@@ -74,158 +73,16 @@ def _resolve_axis(x: Tensor, axis: int) -> int:
     return ax
 
 
-def _exec_input(x: Tensor, cdt) -> 'object':
-    """Move the input to the device that can compute in ``cdt`` (complex128
-    runs on the host CPU device of a TPU host — see interop.py)."""
-    return interop.move(x.jax, interop.device_for_np_dtype(cdt))
-
-
-def _stream_1d(x: Tensor, ax: int, full_n: int):
-    """(n1, n2) when the streaming planar path serves this call: a
-    last-axis (or effectively 1-D) f32/c32 transform — single vector or a
-    batch of rows — whose size the two-pass kernel supports
-    (config.use_stream). None otherwise."""
-    batch = x.ne // x.shape[ax]
-    if batch != 1 and ax != x.n_dim - 1:
-        # a real batch over a non-last axis needs a transpose; dense path
-        return None
-    if not config.use_stream(np.complex64, batch, full_n):
-        return None
-    from . import pallas_stream
-
-    return pallas_stream.factors(full_n)
-
-
-def _planar_out_shape(x: Tensor, ax: int, out_n: int):
-    return tuple(out_n if i == ax else d for i, d in enumerate(x.shape))
-
-
-def _planar_input(x: Tensor, ax: int):
-    """Input array for the planar stream wrappers: last-axis batched rows,
-    or a flat vector when the transform axis isn't last (only reachable
-    when every other dim is 1)."""
-    xj = x.jax
-    if ax != x.n_dim - 1:
-        xj = xj.reshape(-1)
-    return xj
-
-
-def _planar_fft_result(yr, yi, x: Tensor, ax: int, out_n: int,
-                       hermitian: bool) -> Tensor:
-    """Wrap planar FFT output planes; the canonical Planar shape follows
-    the planes, re-viewed to the ND output shape when needed."""
-    pp = Planar(yr, yi, tuple(yr.shape[:-1]) + (out_n,), hermitian=hermitian)
-    want = _planar_out_shape(x, ax, out_n)
-    t = Tensor._from_planar(pp)
-    if t._shape != want:
-        t = Tensor._view_of(t, want)
-    return t
-
-
-def _planar_fft_result_t(hr, hi, x: Tensor, ax: int, out_n: int,
-                         n1: int, n2: int, half: bool) -> Tensor:
-    """Wrap fourstep T / half-T layout planes (pallas_stream_t.py)."""
-    pp = Planar(hr, hi, (out_n,), hermitian=half, fourstep=(n1, n2, half))
-    want = _planar_out_shape(x, ax, out_n)
-    t = Tensor._from_planar(pp)
-    if t._shape != want:
-        t = Tensor._view_of(t, want)
-    return t
-
-
-def _batch_of(x: Tensor, ax: int) -> int:
-    return x.ne // x.shape[ax]
-
-
 def _fft_like(x: Tensor, out, n: int, axis: int, inverse: bool) -> Tensor:
     ax = _resolve_axis(x, axis)
     x_n = x.shape[ax]
     nn = next_pow2(n) if n > 0 else next_pow2(x_n)
     name = 'ifft' if inverse else 'fft'
-
-    # planar streaming path: large 1-D f32/c32 transforms stay as float
-    # planes end-to-end (planar.py); no complex64 materializes on device
-    if out is None and x.dtype in (Dtype.F32, Dtype.C32):
-        nn12 = _stream_1d(x, ax, nn)
-        if nn12 is not None:
-            n1, n2 = nn12
-            pp = x._planar
-            single = _batch_of(x, ax) == 1
-
-            # inverse of a full-T layout spectrum: contiguous reads of
-            # the stored layout, natural-order planar output
-            if (inverse and pp is not None and pp.fourstep == (n1, n2, False)
-                    and pp.full_n == nn and x.shape == pp.shape):
-                with tracing.trace_op(name, 'op;fft',
-                                      tracing.tensor_args(x=x)) as tr:
-                    yr, yi = core.ifft_stream_from_t(pp.re, pp.im, n1, n2)
-                    if tr:
-                        tr.result = (yr, yi)
-                return _planar_fft_result(yr, yi, x, ax, nn,
-                                          hermitian=False)
-
-            # forward single-vector transforms land in the T layout:
-            # phase B writes contiguous row-tiles instead of strided
-            # 512-B rows, and a following ifft reads them contiguously
-            if not inverse and single and (pp is None
-                                           or pp.fourstep is None):
-                with tracing.trace_op(name, 'op;fft',
-                                      tracing.tensor_args(x=x)) as tr:
-                    if (pp is not None and pp.physical_ne == pp.ne
-                            and x.shape == pp.shape):
-                        hr, hi = core.fft_stream_t(
-                            pp.re, pp.im, n1, n2)
-                    elif x.dtype == Dtype.F32:
-                        hr, hi = core.fft_stream_t(
-                            _planar_input(x, ax), None, n1, n2)
-                    else:
-                        hr, hi = core.fft_stream_t(
-                            _planar_input(x, ax), None, n1, n2,
-                            from_dense=True)
-                    if tr:
-                        tr.result = (hr, hi)
-                return _planar_fft_result_t(hr, hi, x, ax, nn, n1, n2,
-                                            half=False)
-
-            with tracing.trace_op(name, 'op;fft', tracing.tensor_args(x=x)) as tr:
-                if (pp is not None and pp.fourstep is None
-                        and pp.physical_ne == pp.ne
-                        and x.shape == pp.shape):
-                    yr, yi = core.fft_stream_planar(
-                        pp.re, pp.im, n1, n2, inverse
-                    )
-                elif x.dtype == Dtype.F32:
-                    yr, yi = core.fft_stream_planar(
-                        _planar_input(x, ax), None, n1, n2, inverse
-                    )
-                else:
-                    yr, yi = core.fft_stream_from_dense(
-                        _planar_input(x, ax), n1, n2, inverse
-                    )
-                if tr:
-                    tr.result = (yr, yi)
-            return _planar_fft_result(yr, yi, x, ax, nn, hermitian=False)
-
-    # batched non-last-axis streaming: the moveaxis fuses into the same
-    # jit as the two-pass kernels (reference axis uniformity,
-    # dsc.cpp:2121-2142)
-    if (out is None and x.dtype in (Dtype.F32, Dtype.C32)
-            and ax != x.n_dim - 1 and _batch_of(x, ax) > 1
-            and config.use_stream(np.complex64, _batch_of(x, ax), nn)):
-        from . import pallas_stream as _ps
-
-        n1, n2 = _ps.factors(nn)
-        with tracing.trace_op(name, 'op;fft', tracing.tensor_args(x=x)) as tr:
-            res = core.fft_stream_axis(x.jax, n1, n2, ax, inverse)
-            if tr:
-                tr.result = res
-        return _finish(res, out)
-
     cdt = _work_cdtype(x.dtype)
     spec, tables = plan.get_plan(nn, 'complex', cdt)
     with tracing.trace_op(name, 'op;fft', tracing.tensor_args(x=x)) as tr:
         res = core.fft_nd(
-            _exec_input(x, cdt), tables, spec, nn, ax, inverse, np.dtype(cdt).name
+            x.jax, tables, spec, nn, ax, inverse, np.dtype(cdt).name
         )
         if tr:
             tr.result = res
@@ -240,50 +97,10 @@ def rfft(x: Tensor, out: Optional[Tensor] = None, n: int = -1, axis: int = -1) -
     # fft_order = pow2(n or x_n) >> 1; out_n = fft_order + 1
     # (reference dsc.cpp:2194-2197)
     full_n = next_pow2(n) if n > 0 else next_pow2(x_n)
-
-    # planar streaming path. Single vectors land in the hermitian-HALF
-    # T layout (pallas_stream_t.py): half the spectrum bytes written,
-    # half the elementwise work on it, contiguous phase-B writes.
-    # Batched rows keep the hermitian-full natural layout (the full
-    # n-point spectrum as float planes with the logical n/2+1 prefix).
-    if out is None and x.dtype == Dtype.F32:
-        nn12 = _stream_1d(x, ax, full_n)
-        if nn12 is not None:
-            n1, n2 = nn12
-            if _batch_of(x, ax) == 1:
-                with tracing.trace_op('rfft', 'op;fft',
-                                      tracing.tensor_args(x=x)) as tr:
-                    hr, hi = core.rfft_stream_half_t(
-                        _planar_input(x, ax), n1, n2)
-                    if tr:
-                        tr.result = (hr, hi)
-                return _planar_fft_result_t(hr, hi, x, ax,
-                                            full_n // 2 + 1, n1, n2,
-                                            half=True)
-            with tracing.trace_op('rfft', 'op;fft', tracing.tensor_args(x=x)) as tr:
-                yr, yi = core.rfft_stream_full(_planar_input(x, ax), n1, n2)
-                if tr:
-                    tr.result = (yr, yi)
-            return _planar_fft_result(yr, yi, x, ax, full_n // 2 + 1,
-                                      hermitian=True)
-
-    if (out is None and x.dtype == Dtype.F32 and ax != x.n_dim - 1
-            and _batch_of(x, ax) > 1
-            and config.use_stream(np.complex64, _batch_of(x, ax), full_n)):
-        from . import pallas_stream as _ps
-
-        n1, n2 = _ps.factors(full_n)
-        with tracing.trace_op('rfft', 'op;fft',
-                              tracing.tensor_args(x=x)) as tr:
-            res = core.rfft_stream_axis(x.jax, n1, n2, ax)
-            if tr:
-                tr.result = res
-        return _finish(res, out)
-
     cdt = _work_cdtype(x.dtype)
     spec, tables = plan.get_plan(full_n, 'real', cdt)
     with tracing.trace_op('rfft', 'op;fft', tracing.tensor_args(x=x)) as tr:
-        res = core.rfft_nd(_exec_input(x, cdt), tables, spec, full_n, ax)
+        res = core.rfft_nd(x.jax, tables, spec, full_n, ax)
         if tr:
             tr.result = res
     return _finish(res, out)
@@ -298,72 +115,11 @@ def irfft(x: Tensor, out: Optional[Tensor] = None, n: int = -1, axis: int = -1) 
     # (reference dsc.cpp:2198-2201)
     order = next_pow2(n - 1) if n > 0 else next_pow2(x_n - 1)
     full_n = order * 2
-
-    pp = x._planar
-
-    # hermitian-half T fast path: the stored half IS the whole valid
-    # spectrum; the inverse reads it contiguously and mirrors in-kernel
-    # (pallas_stream_t.py)
-    if (
-        out is None
-        and pp is not None
-        and pp.fourstep is not None
-        and pp.fourstep[2]
-        and pp.hermitian
-        and pp.full_n == full_n
-        and x.shape == pp.shape
-    ):
-        n1, n2, _ = pp.fourstep
-        with tracing.trace_op('irfft', 'op;fft',
-                              tracing.tensor_args(x=x)) as tr:
-            y = core.irfft_stream_from_half_t(pp.re, pp.im, n1, n2)
-            if tr:
-                tr.result = y
-        return Tensor._from_jax(
-            y.reshape(_planar_out_shape(x, ax, full_n))
-        )
-
-    # hermitian-full fast path: the input already holds the whole valid
-    # spectrum as float planes (a large-rfft result, possibly transformed
-    # by symmetry-preserving ops) — the inverse is a straight full-size
-    # transform with a real output; no Hermitian reconstruction pass
-    if (
-        out is None
-        and pp is not None
-        and pp.fourstep is None
-        and pp.hermitian
-        and pp.full_n == full_n
-        and x.shape == pp.shape
-    ):
-        nn12 = _stream_1d(x, ax, full_n)
-        if nn12 is not None:
-            n1, n2 = nn12
-            with tracing.trace_op('irfft', 'op;fft', tracing.tensor_args(x=x)) as tr:
-                y = core.irfft_stream_from_full(pp.re, pp.im, n1, n2)
-                if tr:
-                    tr.result = y
-            return Tensor._from_jax(
-                y.reshape(_planar_out_shape(x, ax, full_n))
-            )
-
-    if (out is None and x.dtype == Dtype.C32 and ax != x.n_dim - 1
-            and _batch_of(x, ax) > 1
-            and config.use_stream(np.complex64, _batch_of(x, ax), full_n)):
-        from . import pallas_stream as _ps
-
-        n1, n2 = _ps.factors(full_n)
-        with tracing.trace_op('irfft', 'op;fft',
-                              tracing.tensor_args(x=x)) as tr:
-            res = core.irfft_stream_axis(x.jax, n1, n2, ax)
-            if tr:
-                tr.result = res
-        return _finish(res, out)
-
     cdt = DTYPE_TO_NP[x.dtype]
     spec, tables = plan.get_plan(full_n, 'real', cdt)
     with tracing.trace_op('irfft', 'op;fft', tracing.tensor_args(x=x)) as tr:
         res = core.irfft_nd(
-            _exec_input(x, cdt), tables, spec, full_n, ax, np.dtype(cdt).name
+            x.jax, tables, spec, full_n, ax, np.dtype(cdt).name
         )
         if tr:
             tr.result = res
@@ -409,8 +165,7 @@ def _axes2(x: Tensor, axes) -> tuple:
 def fft2(x: Tensor, s=(-1, -1), axes=(-2, -1)) -> Tensor:
     """2-D complex FFT: separable composition of the 1-D engine over both
     axes (np.fft.fft2 semantics, with each size rounded up to a power of
-    two per the dsc pad/crop rule). The second (last-axis) pass rides the
-    batched streaming engine; the first fuses its transpose in."""
+    two per the dsc pad/crop rule)."""
     a0, a1 = _axes2(x, axes)
     return fft(fft(x, n=s[1], axis=a1), n=s[0], axis=a0)
 

@@ -1,25 +1,20 @@
 """FFT compute core: Stockham autosort + Bailey four-step, pure JAX.
 
-TPU-native rebuild of the reference FFT engine (dsc/include/dsc_fft.h,
+Rebuild of the reference FFT engine (dsc/include/dsc_fft.h,
 dsc/src/dsc.cpp:1955-2340). The reference uses a recursive radix-2 DIT
 split with per-row scratch copies; that shape is hostile to XLA (dynamic
 recursion, strided scalar loops), so the rebuild uses:
 
-- **Stockham autosort** (iterative, no bit-reversal, unit-stride batches) for
-  transforms that fit on-chip — every stage is a dense vector op over the
-  whole batch, exactly what the VPU wants;
+- **Stockham autosort** (iterative, no bit-reversal, unit-stride batches)
+  for base-size transforms — every stage is a dense elementwise op over the
+  whole batch, which XLA fuses;
 - **Bailey four-step** (n = n1*n2: column FFTs -> twiddle -> row FFTs ->
   transpose) for large transforms, the same decomposition logic the survey
-  maps to blockwise/sequence-parallel processing (SURVEY §5.7);
-- Pallas base-case kernels on TPU (pallas_kernels.py) that run each base
-  transform as two MXU matmuls in VMEM.
+  maps to blockwise/sequence-parallel processing (SURVEY §5.7).
 
-**Everything internal is planar**: complex values travel as (re, im) float
-pairs. TPU vector registers have no complex type, the PJRT transfer path
-can't move complex arrays (interop.py), and every real<->complex
-materialization at 2^24 costs an HBM pass — so complex arrays exist only at
-the public API boundary. rfft never materializes a complex input (its input
-is real) and irfft never materializes a complex output.
+Internally complex values travel as (re, im) float pairs, so rfft never
+materializes a complex input (its input is real) and irfft never
+materializes a complex output.
 
 Inverse transforms use the conjugation identity ifft(x) = conj(fft(conj(x)))/n
 — on planar data a conjugation is just negating the imaginary plane, which
@@ -33,8 +28,6 @@ from typing import Any, Tuple
 
 import jax
 import jax.numpy as jnp
-
-from . import config
 
 Planar = Tuple[jax.Array, jax.Array]
 
@@ -72,23 +65,12 @@ def stockham_fft_p(xr: jax.Array, xi: jax.Array, w: Planar) -> Planar:
     return xr, xi
 
 
-def _base_fft_p(xr: jax.Array, xi: jax.Array, tables: Planar, n: int) -> Planar:
-    """Base-case n-point batched FFT; Pallas MXU kernel on TPU, Stockham
-    XLA path elsewhere."""
-    if config.use_pallas(jnp.complex64 if xr.dtype == jnp.float32
-                         else jnp.complex128, n):
-        from . import pallas_kernels
-
-        return pallas_kernels.fft_base_planar(xr, xi, n)
-    return stockham_fft_p(xr, xi, tables)
-
-
 def fft_apply_p(xr: jax.Array, xi: jax.Array, spec: Tuple, tables: Any) -> Planar:
     """Forward FFT of each row (B, n) following the factorization ``spec``
     (see plan.build_spec), planar in/out."""
     kind = spec[0]
     if kind == 'base':
-        return _base_fft_p(xr, xi, tables, spec[1])
+        return stockham_fft_p(xr, xi, tables)
 
     _, n1, n2, s1, s2 = spec
     (ttr, tti), t1, t2 = tables
@@ -119,25 +101,11 @@ def fft_batched_p(
 ) -> Planar:
     """(B, n) planar -> (B, n) planar, forward or inverse (1/n scaled)."""
     n = xr.shape[-1]
-    if _stream_ok(xr, n):
-        from . import pallas_stream
-
-        n1, n2 = pallas_stream.factors(n)
-        return pallas_stream.fourstep_stream_p(
-            xr, xi, n1, n2, inverse
-        )
     if inverse:
         yr, yi = fft_apply_p(xr, -xi, spec, tables)
         scale = _one_over(n, xr.dtype)
         return yr * scale, -yi * scale
     return fft_apply_p(xr, xi, spec, tables)
-
-
-def _stream_ok(xr: jax.Array, n: int) -> bool:
-    """Large (B, n) rows on TPU -> two-pass streaming kernel
-    (pallas_stream.py); everything else takes the XLA four-step."""
-    cdtype = jnp.complex64 if xr.dtype == jnp.float32 else jnp.complex128
-    return config.use_stream(cdtype, xr.shape[0], n)
 
 
 def _one_over(n, dtype):
@@ -152,24 +120,14 @@ def rfft_batched_p(
     """(B, n) real -> (B, n/2+1) planar.
 
     Small n: half-size complex transform + untangling pass (reference
-    dsc_real_fft, dsc_fft.h:178-238). Large n: full-size transform of
-    x + 0i — the even/odd packing is a stride-2 lane gather that XLA lowers
-    pathologically at scale (157 ms at 2^24), while the 2x-flops full
-    transform runs at memory speed.
+    dsc_real_fft, dsc_fft.h:178-238). Large n (tables without untangle
+    twiddles, plan.RFFT_PACK_MAX): full-size transform of x + 0i.
     """
     w_tables, wu = tables
     b = x.shape[0]
     nh = n // 2
     if wu is None:
-        if _stream_ok(x, n):
-            from . import pallas_stream
-
-            n1, n2 = pallas_stream.factors(n)
-            yr, yi = pallas_stream.fourstep_stream_p(
-                x, None, n1, n2, inverse=False
-            )
-        else:
-            yr, yi = fft_apply_p(x, jnp.zeros_like(x), spec, w_tables)
+        yr, yi = fft_apply_p(x, jnp.zeros_like(x), spec, w_tables)
         return yr[:, : nh + 1], yi[:, : nh + 1]
     wur, wui = wu
     if nh == 0:
@@ -201,20 +159,9 @@ def irfft_batched_p(
     b = xr.shape[0]
     nh = n // 2
     if wu is None:
-        # X[n-k] = conj(X[k]): DMA kernel (XLA's lane-gather lowering costs
-        # ~15 ms at 2^24)
-        from .pallas_reconstruct import reconstruct_spectrum_p
-
-        fr, fi = reconstruct_spectrum_p(xr, xi, n)
-        if _stream_ok(fr, n):
-            from . import pallas_stream
-
-            n1, n2 = pallas_stream.factors(n)
-            yr, _ = pallas_stream.fourstep_stream_p(
-                fr, fi, n1, n2,
-                inverse=True, real_output=True,
-            )
-            return yr
+        # full spectrum from the half: X[n-k] = conj(X[k])
+        fr = jnp.concatenate([xr, xr[:, 1:nh][:, ::-1]], axis=1)
+        fi = jnp.concatenate([xi, -xi[:, 1:nh][:, ::-1]], axis=1)
         yr, yi = fft_apply_p(fr, -fi, spec, w_tables)
         return yr * _one_over(n, yr.dtype)
     wur, wui = wu
@@ -279,211 +226,9 @@ def _pad_crop(x: jax.Array, target: int) -> jax.Array:
     return jnp.pad(x, pad)
 
 
-# ---------------------------------------------------------------------------
-# planar public-path entries: large single-vector transforms on the
-# streaming kernel, float planes in / float planes out — the public Tensor
-# boundary stays planar (planar.py), so no complex64 ever materializes.
-# ---------------------------------------------------------------------------
-
-
-def _rows(x, n):
-    """(..., m) -> (B, n) rows (pad/crop the last axis), plus the lead
-    shape to restore."""
-    lead = x.shape[:-1]
-    return _pad_crop(x.reshape(-1, x.shape[-1]), n), lead
-
-
-# ---- batched non-last-axis streaming entries ---------------------------
-# The reference treats all axes uniformly via dsc_axis_iterator
-# (dsc.cpp:2121-2142); here the moveaxis fuses into the same jit as the
-# streaming kernels, so a (B, n)-over-axis-0 batch pays two XLA
-# transposes instead of falling to the ~6-pass dense four-step
-# (VERDICT r2 item 5).
-
-
-@partial(jax.jit, static_argnames=('n1', 'n2', 'axis'))
-def rfft_stream_axis(x, n1, n2, axis):
-    from . import pallas_stream
-
-    n = n1 * n2
-    xm = jnp.moveaxis(x, axis, -1)
-    lead = xm.shape[:-1]
-    xb = _pad_crop(xm.reshape(-1, xm.shape[-1]), n)
-    yr, yi = pallas_stream.fourstep_stream_p(xb, None, n1, n2, False)
-    nh1 = n // 2 + 1
-    y = jax.lax.complex(yr[:, :nh1], yi[:, :nh1]).reshape(*lead, nh1)
-    return jnp.moveaxis(y, -1, axis)
-
-
-@partial(jax.jit, static_argnames=('n1', 'n2', 'axis'))
-def irfft_stream_axis(x, n1, n2, axis):
-    from . import pallas_stream
-    from .pallas_reconstruct import reconstruct_spectrum_p
-
-    n = n1 * n2
-    xm = jnp.moveaxis(x, axis, -1)
-    lead = xm.shape[:-1]
-    xb = _pad_crop(xm.reshape(-1, xm.shape[-1]), n // 2 + 1)
-    fr, fi = reconstruct_spectrum_p(jnp.real(xb), jnp.imag(xb), n)
-    yr, _ = pallas_stream.fourstep_stream_p(
-        fr, fi, n1, n2, inverse=True, real_output=True)
-    return jnp.moveaxis(yr.reshape(*lead, n), -1, axis)
-
-
-@partial(jax.jit, static_argnames=('n1', 'n2', 'axis', 'inverse'))
-def fft_stream_axis(x, n1, n2, axis, inverse):
-    from . import pallas_stream
-
-    n = n1 * n2
-    xm = jnp.moveaxis(x, axis, -1)
-    lead = xm.shape[:-1]
-    xb = _pad_crop(xm.reshape(-1, xm.shape[-1]), n)
-    if jnp.iscomplexobj(xb):
-        xr_, xi_ = jnp.real(xb), jnp.imag(xb)
-    else:
-        xr_, xi_ = xb.astype(jnp.float32), None
-    yr, yi = pallas_stream.fourstep_stream_p(xr_, xi_, n1, n2, inverse)
-    y = jax.lax.complex(yr, yi).reshape(*lead, n)
-    return jnp.moveaxis(y, -1, axis)
-
-
-# ---- fourstep T / half-T layout entries (pallas_stream_t.py) ----------
-# batch == 1 only: the transposed layout trades the natural path's
-# strided phase-B writes for contiguous (half-width) tiles and lets the
-# inverse read exactly the stored half.
-
-
-@partial(jax.jit, static_argnames=('n1', 'n2'))
-def rfft_stream_half_t(x, n1, n2):
-    """(m,)-ish real vector (pad/crop to n) -> hermitian-half T-layout
-    planes (n1 + pad, n2/2 + 128). Routes through the packed half-size
-    engine (one n/2 complex engine via the even/odd packing, -33% MXU
-    work per pair — fully fused in packed_fused.py, XLA-composed in
-    packed.py) per config.packed_impl; the full-size real engine is
-    the fallback and the DSC_FFT_PACKED=off escape hatch."""
-    from . import config, pallas_stream_t
-
-    xb, _ = _rows(x, n1 * n2)
-    impl = config.packed_impl(n1, n2)
-    if impl == 'fused':
-        from . import packed_fused
-
-        return packed_fused.rfft_half_t_packed_fused(
-            xb.reshape(-1), n1, n2)
-    if impl == 'xla':
-        from . import packed
-
-        return packed.rfft_half_t_packed(xb.reshape(-1), n1, n2)
-    return pallas_stream_t.fourstep_to_t_p(
-        xb.reshape(-1), None, n1, n2, half=True)
-
-
-@partial(jax.jit, static_argnames=('n1', 'n2'))
-def irfft_stream_from_half_t(hr, hi, n1, n2):
-    """Hermitian-half T-layout planes -> (n,) real inverse."""
-    from . import config, pallas_stream_t
-
-    impl = config.packed_impl(n1, n2)
-    if impl == 'fused':
-        from . import packed_fused
-
-        return packed_fused.irfft_from_half_t_packed_fused(hr, hi, n1, n2)
-    if impl == 'xla':
-        from . import packed
-
-        return packed.irfft_from_half_t_packed(hr, hi, n1, n2)
-    yr, _ = pallas_stream_t.fourstep_from_t_p(
-        hr, hi, n1, n2, half=True, real_output=True)
-    return yr
-
-
-@partial(jax.jit, static_argnames=('n1', 'n2', 'from_dense'))
-def fft_stream_t(xr, xi, n1, n2, from_dense=False):
-    """Forward complex FFT into full-T layout planes (n1, n2). xr/xi are
-    float planes (xi None = real input); from_dense marks a complex
-    input to split."""
-    from . import pallas_stream_t
-
-    if from_dense:
-        xr, xi = jnp.real(xr), jnp.imag(xr)
-    n = n1 * n2
-    xb, _ = _rows(xr, n)
-    xib = None
-    if xi is not None:
-        xib, _ = _rows(xi, n)
-        xib = xib.reshape(-1)
-    return pallas_stream_t.fourstep_to_t_p(
-        xb.reshape(-1), xib, n1, n2, half=False)
-
-
-@partial(jax.jit, static_argnames=('n1', 'n2'))
-def ifft_stream_from_t(hr, hi, n1, n2):
-    """Full-T layout planes -> natural-order (n,) planar inverse."""
-    from . import pallas_stream_t
-
-    return pallas_stream_t.fourstep_from_t_p(
-        hr, hi, n1, n2, half=False, real_output=False)
-
-
-@partial(jax.jit, static_argnames=('n1', 'n2'))
-def rfft_stream_full(x, n1, n2):
-    """(..., m) real (pad/crop to n = n1*n2) -> full-spectrum planes
-    (..., n), natural order per row. The logical rfft output is the
-    last-axis prefix of length n//2+1; the upper half is the exact
-    conjugate mirror (hermitian-full layout, planar.py)."""
-    from . import pallas_stream
-
-    xb, lead = _rows(x, n1 * n2)
-    yr, yi = pallas_stream.fourstep_stream_p(xb, None, n1, n2, inverse=False)
-    n = n1 * n2
-    return yr.reshape(*lead, n), yi.reshape(*lead, n)
-
-
-@partial(jax.jit, static_argnames=('n1', 'n2'))
-def irfft_stream_from_full(fr, fi, n1, n2):
-    """Full-spectrum (..., n) planes -> (..., n) real inverse. Caller
-    guarantees the planes hold valid Hermitian spectra (hermitian flag)."""
-    from . import pallas_stream
-
-    n = n1 * n2
-    lead = fr.shape[:-1]
-    yr, _ = pallas_stream.fourstep_stream_p(
-        fr.reshape(-1, n), fi.reshape(-1, n), n1, n2,
-        inverse=True, real_output=True,
-    )
-    return yr.reshape(*lead, n)
-
-
-def _fft_stream_planar(xr, xi, n1, n2, inverse):
-    from . import pallas_stream
-
-    n = n1 * n2
-    xb, lead = _rows(xr, n)
-    xib = None
-    if xi is not None:
-        xib, _ = _rows(xi, n)
-    yr, yi = pallas_stream.fourstep_stream_p(xb, xib, n1, n2, inverse=inverse)
-    return yr.reshape(*lead, n), yi.reshape(*lead, n)
-
-
-@partial(jax.jit, static_argnames=('n1', 'n2', 'inverse'))
-def fft_stream_planar(xr, xi, n1, n2, inverse):
-    """(..., m) planes (xi may be None for real input; pad/crop to n) ->
-    (..., n) planes, forward or 1/n-scaled inverse."""
-    return _fft_stream_planar(xr, xi, n1, n2, inverse)
-
-
-@partial(jax.jit, static_argnames=('n1', 'n2', 'inverse'))
-def fft_stream_from_dense(x, n1, n2, inverse):
-    """Dense complex input -> (..., n) planes (one split pass, fused with
-    pad/crop)."""
-    return _fft_stream_planar(jnp.real(x), jnp.imag(x), n1, n2, inverse)
-
-
 @partial(jax.jit, static_argnames=('spec', 'n', 'axis', 'inverse', 'cdtype'))
 def fft_nd(x, tables, spec, n, axis, inverse, cdtype):
-    # input cast happens inside jit: complex arrays must not materialize
-    # eagerly at the transfer boundary (interop.py)
+    # the input cast happens inside jit, where it fuses into the transform
     x = x.astype(cdtype)
     x = _pad_crop(jnp.moveaxis(x, axis, -1), n)
     lead = x.shape[:-1]

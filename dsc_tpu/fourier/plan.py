@@ -1,6 +1,6 @@
 """FFT plan cache for dsc_tpu.
 
-TPU-native rebuild of the reference plan cache (dsc/src/dsc.cpp:182-267,
+Rebuild of the reference plan cache (dsc/src/dsc.cpp:182-267,
 dsc/include/dsc_fft.h:33-55).
 
 A "plan" holds precomputed twiddle tables as device arrays plus a static
@@ -28,9 +28,9 @@ import numpy as np
 
 MAX_FFT_PLANS = int(os.environ.get('DSC_MAX_FFT_PLANS', '16'))
 
-# Largest transform handled by a single base-case kernel; above this the
-# four-step factorization splits the work (SURVEY §5.7: the blockwise
-# decomposition for transforms that exceed VMEM).
+# Largest transform handled by a single base-case Stockham pass; above
+# this the four-step factorization splits the work (SURVEY §5.7: the
+# blockwise decomposition of large transforms).
 BASE_MAX = 4096
 
 # Largest real transform using the half-size even/odd packing; above this
@@ -61,7 +61,7 @@ def next_pow2(n: int) -> int:
 def build_spec(n: int) -> Tuple:
     """Static factorization spec for an n-point transform (n = power of 2).
 
-    ('base', n)                      — single-kernel Stockham/Pallas FFT
+    ('base', n)                      — single-pass Stockham FFT
     ('split', n1, n2, spec1, spec2)  — Bailey four-step, n = n1*n2
     """
     if n <= BASE_MAX:
@@ -75,9 +75,8 @@ def build_spec(n: int) -> Tuple:
 
 
 def _planar(table: np.ndarray, cdtype) -> Tuple:
-    """Complex table -> planar (re, im) device pair. TPU PJRT cannot
-    transfer complex arrays (see interop.py); planar floats upload cleanly
-    everywhere and lax.complex recombines them inside the jitted kernel."""
+    """Complex table -> planar (re, im) device pair, the form the planar
+    engine (core.py) consumes."""
     fdtype = np.float32 if np.dtype(cdtype) == np.complex64 else np.float64
     return (
         jnp.asarray(np.ascontiguousarray(table.real).astype(fdtype)),
@@ -151,10 +150,8 @@ def get_plan(n: int, fft_type: str, cdtype) -> Tuple[Tuple, Any]:
 def _build_plan(n: int, fft_type: str, cdtype) -> Tuple[Tuple, Any]:
     if fft_type == 'real':
         if n > RFFT_PACK_MAX:
-            # Large real transforms run through the full-size complex engine:
-            # the half-size even/odd packing is a stride-2 lane gather that
-            # XLA lowers catastrophically at scale (measured 157 ms for the
-            # 2^24 deinterleave alone vs 7 ms for the whole full-size fft).
+            # Large real transforms run through the full-size complex
+            # engine instead of the half-size even/odd packing.
             spec = build_spec(n)
             tables = (_build_tables(spec, cdtype), None)
         else:

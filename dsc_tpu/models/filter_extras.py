@@ -272,9 +272,9 @@ def freqz_sos(sos, worN: int = 512, fs: float = 2.0 * np.pi):
 
 
 def choose_conv_method(in1, in2, mode: str = 'full') -> str:
-    """scipy.signal.choose_conv_method analog: on TPU the batched FFT
-    path is the fast path at every size this framework targets, so the
-    answer is always 'fft'."""
+    """scipy.signal.choose_conv_method analog: every convolution routes
+    to the batched FFT path (models/filter_fft.convolve), so the answer is
+    always 'fft'."""
     del in1, in2, mode
     return 'fft'
 

@@ -2,7 +2,7 @@
 README.md:110-137): out = irfft(rfft(signal) * rfft(taps))[:n+taps-1].
 
 ``FilterFFT`` precomputes the kernel spectrum once (the "weights") and
-reuses it across calls — the TPU-idiomatic shape for a streaming filter.
+reuses it across calls — the natural shape for a streaming filter.
 Each block runs through ONE ``dsc.compile`` program (rfft + spectrum
 multiply + irfft + crop fused into a single device dispatch), instead of
 the reference's one-C-call-per-op eager chain.
@@ -161,9 +161,8 @@ class FilterFFT:
 def convolve(in1: Tensor, in2: Tensor, mode: str = 'full',
              method: str = 'auto') -> Tensor:
     """scipy.signal.convolve for 1-D and 2-D Tensors. Every ``method``
-    routes to the FFT engine ('direct' included — on TPU the batched
-    FFT path IS the fast path at all sizes; results match the direct
-    sum to f32 rounding, which the tests pin)."""
+    routes to the FFT engine ('direct' included; results match the
+    direct sum to f32 rounding, which the tests pin)."""
     if method not in ('auto', 'fft', 'direct'):
         raise RuntimeError(f'convolve: unknown method {method!r}')
     if in2.n_dim == 2 and in1.n_dim == 2:

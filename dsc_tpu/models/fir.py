@@ -289,7 +289,7 @@ def savgol_filter(x: Tensor, window_length: int, polyorder: int,
         et = jnp.asarray(_polyfit_edge_matrix(
             window_length, polyorder, halflen, deriv, delta, tail=True
         ).astype(np.float32))
-        hp = 'highest'  # TPU default matmul precision is bf16
+        hp = 'highest'  # the GPU default for f32 matmuls may be TF32
         head = jnp.matmul(xj[:, :window_length], eh.T, precision=hp)
         tail = jnp.matmul(xj[:, -window_length:], et.T, precision=hp)
         out = jnp.concatenate(

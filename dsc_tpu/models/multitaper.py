@@ -15,7 +15,7 @@ Two spectral estimators beyond the Welch family (models/psd.py):
   UNEVENLY sampled data (scipy.signal.lombscargle semantics, the
   Townsend tau-shifted form). No FFT applies at irregular times; the
   (nfreq, n) phase grid is computed in one fused elementwise+reduction
-  program — MXU/VPU-dense and batch-parallel, evaluated in f64 (phase
+  program — dense and batch-parallel, evaluated in f64 (phase
   w*t needs it; this matches scipy, which computes in f64).
 
 The reference has no multitaper/Lomb-Scargle analog; these follow the
@@ -76,7 +76,7 @@ def _multitaper_program(x, tapers, ratios, fs, n, spec, tables, weighting,
         pxx = jnp.mean(sk, axis=1)
     elif weighting == 'eigen':
         wk = ratios / jnp.sum(ratios)
-        pxx = jnp.einsum('k,bkf->bf', wk, sk)
+        pxx = jnp.einsum('k,bkf->bf', wk, sk, precision='highest')
     else:  # adaptive (Thomson): d_k = S / (lam_k S + (1-lam_k) sig2)
         sig2 = jnp.mean(x * x, axis=-1, keepdims=True)[:, :, None]  # (b,1,1)
         lam = ratios[None, :, None]  # (1,k,1)

@@ -5,7 +5,7 @@ The reference's filterFFT example (README.md:110-137) transforms the whole
 signal at once, so its FFT grows with the input. Overlap-save is the
 classic DSP decomposition — overlapping fft_n-sample blocks, one batched
 rfft·K·irfft, keep the last hop = fft_n - (taps-1) samples of each block —
-and it is the TPU-idiomatic shape for long signals: every block rides the
+and it is the natural shape for long signals: every block rides the
 batched FFT engine (fourier/core.py) as ONE jitted program of static
 shapes, with the framing expressed as pure data movement.
 """

@@ -1,4 +1,4 @@
-"""scipy.signal.ShortTimeFFT parity class, TPU-native.
+"""scipy.signal.ShortTimeFFT parity class.
 
 The reference framework has no time-frequency class (its closest surface
 is the FFT family, reference dsc.h:384-424); this module belongs to the
@@ -82,7 +82,7 @@ def _as_batched_planar(x, name: str, axis: int = -1):
                          f'{x.n_dim}-D input')
     if x.dtype.is_complex:
         pp = x._planar
-        if pp is not None and pp.fourstep is None and not pp.hermitian:
+        if pp is not None:
             xr, xi = pp.re, pp.im
         else:
             xj = x.jax
@@ -878,7 +878,7 @@ class ShortTimeFFT:
                              f'have at least {q_num_min} slices '
                              f'({shape=})!')
         pp = S._planar
-        if pp is not None and pp.fourstep is None and not pp.hermitian:
+        if pp is not None:
             sr, si = pp.re, pp.im
         else:
             sj = S.jax

@@ -57,8 +57,8 @@ def _scan2(v, a2, a3, y0, y1):
     vs = jnp.stack([v[:, 2:], jnp.zeros((b, steps), v.dtype)], axis=2)
     # fold the initial state into the first step
     s0 = jnp.stack([y1, y0], axis=1)  # (b, 2)
-    # HIGHEST precision: the TPU's default bf16 matmul compounds over the
-    # scan's log2(n) composition levels (round-4 on-chip finding, iir.py)
+    # HIGHEST precision: a reduced-precision default f32 matmul (TF32 on
+    # GPUs) compounds over the scan's log2(n) composition levels (iir.py)
     hp = jax.lax.Precision.HIGHEST
     vs = vs.at[:, 0, :].add(jnp.matmul(s0, m.T, precision=hp))
 
@@ -151,6 +151,11 @@ def _hs_vec(k, cs, rho, omega):
     return c0 * rho ** ak * (np.cos(omega * ak) + gamma * np.sin(omega * ak))
 
 
+def _mm(a, b):
+    # f32 matmuls may run in TF32 on GPUs unless HIGHEST is asked for
+    return jnp.matmul(a, b, precision='highest')
+
+
 @partial(jax.jit, static_argnames=('swap01',))
 def _symiir2_core(x, cs, a2, a3, hc0, hc1, hfwd0, hfwd1, hbwd_last,
                   hbwd_last2, swap01=True):
@@ -158,16 +163,16 @@ def _symiir2_core(x, cs, a2, a3, hc0, hc1, hfwd0, hfwd1, hbwd_last,
     #   y0 = hc(0) x0 + sum hc(k+1) x[k]
     #   y1 = hc(0) x1 + hc(1) x0 + ... (symiirorder2's C convention), or
     #   y1 = hc(0) x0 + hc(1) x1 + ... (the smoothing-spline convention)
-    y0 = hc0 * x[:, 0] + x @ hfwd0
+    y0 = hc0 * x[:, 0] + _mm(x, hfwd0)
     if swap01:
-        y1 = hc0 * x[:, 1] + hc1 * x[:, 0] + x @ hfwd1
+        y1 = hc0 * x[:, 1] + hc1 * x[:, 0] + _mm(x, hfwd1)
     else:
-        y1 = hc0 * x[:, 0] + hc1 * x[:, 1] + x @ hfwd1
+        y1 = hc0 * x[:, 0] + hc1 * x[:, 1] + _mm(x, hfwd1)
     yf = _scan2(cs * x, a2, a3, y0, y1)
     # backward ICs from the SYMMETRIC response to the input
     xr = x[:, ::-1]
-    o_last = xr @ hbwd_last
-    o_last2 = xr @ hbwd_last2
+    o_last = _mm(xr, hbwd_last)
+    o_last2 = _mm(xr, hbwd_last2)
     yr = _scan2(cs * yf[:, ::-1], a2, a3, o_last, o_last2)
     return yr[:, ::-1]
 

@@ -1,4 +1,4 @@
-"""STFT / spectrogram pipeline (BASELINE.json config 4: sliding-window rfft
+"""STFT / spectrogram pipeline (BASELINE.md config 4: sliding-window rfft
 + |.|^2 + log over streaming audio, traced end-to-end with dsc.profile()).
 
 Framing uses a strided gather expressed as reshape+slice so XLA lowers it to
@@ -57,9 +57,8 @@ def _frame_dense(x, frame: int, hop: int, n_frames: int):
     """Sliding-window framing as PURE LAYOUT data movement: ceil(frame/hop)
     shifted hop-wide phase slices, each a strided reshape, concatenated
     along the window axis — frames[:, i, c*hop + j] = x[:, (i+c)*hop + j].
-    A vmap(dynamic_slice) formulation lowers to a gather, which TPUs
-    execute as a serial loop; this version is plain slices XLA fuses into
-    the consumer's input pass. ``x`` is (b, n)."""
+    A vmap(dynamic_slice) formulation lowers to a gather; this version is
+    plain slices XLA fuses into the consumer's input pass. ``x`` is (b, n)."""
     b = x.shape[0]
     kph = -(-frame // hop)
     need = (n_frames + kph - 1) * hop
@@ -172,9 +171,8 @@ def _istft_program(zre, zim, window, inv_wsq, tables, frame, hop, n_frames,
     wherever the window coverage is nonzero). One device dispatch.
     ``zre``/``zim`` are (b, n_frames, bins).
 
-    The overlap-add is TPU-shaped: when hop divides frame it runs as
-    frame/hop dense shifted slice-adds (pure vector adds XLA fuses),
-    not a scatter — TPU scatter lowers to a sort-based loop. The
+    When hop divides frame the overlap-add runs as frame/hop dense
+    shifted slice-adds (pure vector adds XLA fuses), not a scatter. The
     1/sum(w^2) denominator depends only on (window, hop, n_frames), so it
     is computed host-side in f64 and baked as a constant."""
     b = zre.shape[0]
@@ -253,7 +251,7 @@ class ISTFT:
                 f'length {length} exceeds the frame span {span}'
             )
         pp = z._planar
-        if pp is not None and pp.fourstep is None and not pp.hermitian:
+        if pp is not None:
             zre, zim = pp.re, pp.im
         else:
             zj = z.jax

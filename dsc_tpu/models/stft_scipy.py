@@ -251,7 +251,7 @@ def istft(z: Tensor, fs: float = 1.0, window='hann',
 
     batched = z.n_dim == 3
     pp = z._planar
-    if pp is not None and pp.fourstep is None and not pp.hermitian:
+    if pp is not None:
         zre, zim = pp.re, pp.im
     else:
         zj = z.jax

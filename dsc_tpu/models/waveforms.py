@@ -21,7 +21,7 @@ import numpy as np
 
 from .. import tracing
 from ..dtype import DTYPE_TO_NP, Dtype
-from ..tensor import Tensor, _creation_ctx
+from ..tensor import Tensor
 
 
 def _time_axis(t, who: str):
@@ -34,8 +34,7 @@ def _time_axis(t, who: str):
 
 def _emit(who: str, res, dtype: Dtype) -> Tensor:
     with tracing.trace_op(who, 'op;creation', {'shape': tuple(res.shape)}):
-        with _creation_ctx(Dtype(dtype)):
-            out = res.astype(DTYPE_TO_NP[Dtype(dtype)])
+        out = res.astype(DTYPE_TO_NP[Dtype(dtype)])
     return Tensor._from_jax(out)
 
 

@@ -1,12 +1,12 @@
 """Device-mesh helpers.
 
-The reference has no distributed story at all (SURVEY §2.4); the TPU-native
-scaling path is jax.sharding over a Mesh with XLA collectives riding ICI
-(SURVEY §5.8). The two axes used by this framework:
+The reference has no distributed story at all (SURVEY §2.4); the scaling
+path here is jax.sharding over a Mesh with XLA collectives over the device
+interconnect (SURVEY §5.8). The two axes used by this framework:
 
-- 'data'  — batch (DP): independent transforms spread over chips
+- 'data'  — batch (DP): independent transforms spread over devices
 - 'model' — transform-length (the TP/SP analog): one large FFT factorized
-  over chips, exchanging via all-to-all (the four-step transpose)
+  over devices, exchanging via all-to-all (the four-step transpose)
 """
 
 from __future__ import annotations

@@ -1,39 +1,20 @@
-"""Planar complex storage: (re, im) float planes behind a C32 Tensor.
+"""Planar complex storage: (re, im) float planes behind a complex Tensor.
 
-TPU vector registers have no complex type, the PJRT transfer path cannot
-move complex arrays (interop.py), and every planar<->complex64
-materialization of a 2^24-point spectrum costs two full HBM passes. The
-FFT engine is planar end-to-end (fourier/core.py); this module lets the
-*public* Tensor boundary stay planar too, so chains like the README
-filterFFT pipeline (rfft -> multiply -> irfft, reference README.md:110-137)
-never materialize complex64 on device.
+The model tier (STFT, PSD, ShortTimeFFT, the scipy.fft-parity transforms)
+computes spectra as separate real and imaginary planes. This module lets
+the public Tensor hold such a result without combining the planes into one
+complex array; elementwise ops between planar tensors, and with scalars,
+stay on the planes, and anything else materializes the dense complex value
+lazily (``Tensor.jax``).
 
-A ``Planar`` value is two same-shape float32 planes plus a LOGICAL shape.
-Physical storage may be wider than the logical value along the LAST axis
-("prefix" semantics): the logical data is ``planes[..., :shape[-1]]``.
-Leading dims must match, so batched spectra work row-wise.
-
-The key layout is the **hermitian-full spectrum**: a large rfft keeps the
-entire n-point spectrum (natural order, flat (n,) planes) and exposes the
-logical n/2+1 prefix (reference rfft shape rule, dsc.cpp:2194-2197). While
-``hermitian`` holds, the upper half is the exact conjugate mirror of the
-lower half, so irfft of such a tensor is a straight full-size inverse with
-a real output — the Hermitian reconstruction pass (pallas_reconstruct.py)
-is skipped entirely. Elementwise ops between hermitian spectra (and with
-real scalars) preserve the mirror property; anything else drops the flag
-and irfft falls back to reconstruction.
-
-Ops run on the FULL physical planes (the redundant upper half is valid
-spectrum data, so this wastes at most 2x elementwise work on the pad) and
-XLA fuses the prefix slice into consumers for the ops that leave planar
-form (abs/angle/real/imag).
+A ``Planar`` value is two same-shape float planes; its logical shape is the
+planes' shape.
 """
 
 from __future__ import annotations
 
-import math
 from functools import partial
-from typing import Optional, Tuple
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -41,44 +22,17 @@ import numpy as np
 
 
 class Planar:
-    """Two float planes representing a complex64 value of ``shape``.
+    """Two float planes representing a complex value of ``shape``."""
 
-    ``fourstep = (n1, n2, half)`` marks the transposed streaming-FFT
-    layout (pallas_stream_t.py): physical planes are (n1 + pad, nc) with
-    X_T[k1, k2] = X[k1 + n1*k2]; ``half`` stores only columns [0, n2/2]
-    of a real-input spectrum (the upper half is the conjugate mirror, so
-    ``hermitian`` is True by construction and the logical shape is
-    (n/2+1,)). Natural order is restored lazily at materialize()/
-    to_numpy(); same-layout elementwise ops run on the physical planes
-    directly (half the work of a full spectrum)."""
+    __slots__ = ('re', 'im', 'shape', '_dense')
 
-    __slots__ = ('re', 'im', 'shape', 'hermitian', 'fourstep', '_dense')
-
-    def __init__(
-        self,
-        re: jax.Array,
-        im: jax.Array,
-        shape: Tuple[int, ...],
-        hermitian: bool = False,
-        fourstep: Optional[Tuple[int, int, bool]] = None,
-    ):
-        assert re.shape == im.shape and re.dtype == im.dtype
+    def __init__(self, re: jax.Array, im: jax.Array, shape):
         shape = tuple(shape)
-        if fourstep is None:
-            assert tuple(re.shape[:-1]) == shape[:-1], (re.shape, shape)
-            assert shape[-1] <= re.shape[-1], (re.shape, shape)
-        else:
-            n1, n2, half = fourstep
-            assert re.ndim == 2 and re.shape[1] >= (
-                n2 // 2 + 1 if half else n2), (re.shape, fourstep)
-            assert shape == ((n1 * n2 // 2 + 1,) if half
-                             else (n1 * n2,)), (shape, fourstep)
-            assert hermitian or not half
+        assert re.shape == im.shape == shape and re.dtype == im.dtype, (
+            re.shape, im.shape, shape)
         self.re = re
         self.im = im
         self.shape = shape
-        self.hermitian = hermitian
-        self.fourstep = fourstep
         self._dense: Optional[jax.Array] = None
 
     # -- metadata (what _Buffer / Tensor need) ------------------------------
@@ -95,126 +49,28 @@ class Planar:
 
     @property
     def ne(self) -> int:
-        """Logical element count."""
-        return int(math.prod(self.shape))
-
-    @property
-    def physical_ne(self) -> int:
         return int(self.re.size)
-
-    @property
-    def full_n(self) -> int:
-        """Spectrum transform length n: last plane dim for the natural
-        hermitian-full layout, n1*n2 for fourstep layouts."""
-        if self.fourstep is not None:
-            return self.fourstep[0] * self.fourstep[1]
-        return int(self.re.shape[-1])
 
     # -- materialization ------------------------------------------------------
 
     def materialize(self) -> jax.Array:
-        """Dense complex array of the logical shape (cached); fourstep
-        layouts untranspose on device first."""
+        """Dense complex array (cached)."""
         if self._dense is None:
-            if self.fourstep is not None:
-                self._dense = _materialize_t(
-                    self.re, self.im, fourstep=self.fourstep,
-                    shape=self.shape)
-            else:
-                self._dense = _materialize(
-                    self.re, self.im, ne=self.ne, shape=self.shape
-                )
+            self._dense = _combine(self.re, self.im)
         return self._dense
 
     def to_numpy(self) -> np.ndarray:
-        """Host complex array — downloads the float planes (complex can't
-        cross the TPU transfer boundary, interop.py) and combines on host
-        (fourstep layouts untranspose host-side: X[k1 + n1*k2] =
-        H[k1, k2])."""
-        if self.fourstep is not None:
-            n1, n2, half = self.fourstep
-            m2 = n2 // 2 + 1 if half else n2
-            re = np.asarray(self.re)[:n1, :m2].T.reshape(-1)
-            im = np.asarray(self.im)[:n1, :m2].T.reshape(-1)
-            m = self.shape[-1]
-            out = np.empty(self.shape, dtype=self.dtype)
-            out.real = re[:m]
-            out.imag = im[:m]
-            return out
-        m = self.shape[-1]
-        re = np.asarray(self.re)[..., :m]
-        im = np.asarray(self.im)[..., :m]
+        """Host complex array: downloads the two float planes and combines
+        them on the host."""
         out = np.empty(self.shape, dtype=self.dtype)
-        out.real = re
-        out.imag = im
+        out.real = np.asarray(self.re)
+        out.imag = np.asarray(self.im)
         return out
 
 
-def _prefix(p, shape):
-    m = shape[-1]
-    if m != p.shape[-1]:
-        p = p[..., :m]
-    return p.reshape(shape)
-
-
-@partial(jax.jit, static_argnames=('ne', 'shape'))
-def _materialize(re, im, *, ne, shape):
-    return jax.lax.complex(_prefix(re, shape), _prefix(im, shape))
-
-
-def _nat_t(p, fourstep, shape):
-    """Natural-order real plane from a fourstep-layout plane (traced)."""
-    n1, n2, half = fourstep
-    m2 = n2 // 2 + 1 if half else n2
-    return p[:n1, :m2].T.reshape(-1)[: shape[-1]].reshape(shape)
-
-
-@partial(jax.jit, static_argnames=('fourstep', 'shape'))
-def _materialize_t(re, im, *, fourstep, shape):
-    return jax.lax.complex(_nat_t(re, fourstep, shape),
-                           _nat_t(im, fourstep, shape))
-
-
-@partial(jax.jit, static_argnames=('fourstep', 'shape'))
-def _abs_t(re, im, *, fourstep, shape):
-    fr = _nat_t(re, fourstep, shape)
-    fi = _nat_t(im, fourstep, shape)
-    return jnp.sqrt(fr * fr + fi * fi)
-
-
-@partial(jax.jit, static_argnames=('fourstep', 'shape'))
-def _angle_t(re, im, *, fourstep, shape):
-    return jnp.arctan2(_nat_t(im, fourstep, shape),
-                       _nat_t(re, fourstep, shape))
-
-
-@partial(jax.jit, static_argnames=('fourstep', 'shape'))
-def _plane_t(p, *, fourstep, shape):
-    return _nat_t(p, fourstep, shape)
-
-
-# pp-level dispatchers (tensor.py entry points): route natural-layout
-# planes through the prefix forms, fourstep layouts through the
-# untransposing forms
-
-
-def abs_pp(pp: 'Planar'):
-    if pp.fourstep is not None:
-        return _abs_t(pp.re, pp.im, fourstep=pp.fourstep, shape=pp.shape)
-    return abs_planes(pp.re, pp.im, ne=pp.ne, shape=pp.shape)
-
-
-def angle_pp(pp: 'Planar'):
-    if pp.fourstep is not None:
-        return _angle_t(pp.re, pp.im, fourstep=pp.fourstep, shape=pp.shape)
-    return angle_planes(pp.re, pp.im, ne=pp.ne, shape=pp.shape)
-
-
-def plane_pp(pp: 'Planar', which: str):
-    p = pp.re if which == 'real' else pp.im
-    if pp.fourstep is not None:
-        return _plane_t(p, fourstep=pp.fourstep, shape=pp.shape)
-    return prefix_plane(p, ne=pp.ne, shape=pp.shape)
+@jax.jit
+def _combine(re, im):
+    return jax.lax.complex(re, im)
 
 
 # ---------------------------------------------------------------------------
@@ -240,85 +96,31 @@ def _complex_math(ar, ai, br, bi, name):
     raise AssertionError(name)
 
 
-def _herm_preserved(name: str) -> bool:
-    """Ops that keep the hermitian mirror property of both-hermitian
-    operands. pow does not: log's branch cut breaks conj(x)^s ==
-    conj(x^s) for negative-real spectrum values."""
-    return name in ('add', 'sub', 'mul', 'div')
-
-
 @partial(jax.jit, static_argnames=('name',))
 def _pp_jit(ar, ai, br, bi, *, name):
-    from .ops import pallas_map
-
-    shapes = (ar.shape, ai.shape, br.shape, bi.shape)
-    dtypes = (ar.dtype, ai.dtype, br.dtype, bi.dtype)
-    if _herm_preserved(name) and pallas_map.eligible(shapes, dtypes):
-        # pow is excluded: its formula needs atan2, which has no proven
-        # Mosaic lowering on this backend; the XLA real-formula path below
-        # is still wedge-safe (no native complex transcendentals)
-        # 4 planes in, 2 out: DMA-streamed (~2x XLA's fused-loop BW)
-        return pallas_map.stream_map_multi(
-            lambda a, b, c, d: _complex_math(a, b, c, d, name),
-            (ar, ai, br, bi),
-            (ar.dtype, ar.dtype),
-        )
     return _complex_math(ar, ai, br, bi, name)
 
 
 def binary_pp(name: str, a: Planar, b: Planar) -> Optional[Planar]:
-    """Planar x planar elementwise op; None if shapes/layouts are
-    incompatible (the caller then falls back to dense materialization).
-    Same-layout fourstep operands compute on the physical planes — for
-    the half layout that is HALF the elementwise work of a full
-    spectrum."""
-    if a.re.shape != b.re.shape or a.shape != b.shape:
-        return None
-    if a.re.dtype != b.re.dtype or a.fourstep != b.fourstep:
-        return None
-    half = a.fourstep is not None and a.fourstep[2]
-    if half and not _herm_preserved(name):
-        # half storage can only represent hermitian spectra; pow's branch
-        # cut breaks the implied mirror -> dense fallback
+    """Planar x planar elementwise op; None if shapes or precisions differ
+    (the caller then falls back to dense materialization)."""
+    if a.shape != b.shape or a.re.dtype != b.re.dtype:
         return None
     yr, yi = _pp_jit(a.re, a.im, b.re, b.im, name=name)
-    herm = half or (a.hermitian and b.hermitian and _herm_preserved(name))
-    return Planar(yr, yi, a.shape, hermitian=herm, fourstep=a.fourstep)
+    return Planar(yr, yi, a.shape)
 
 
-def binary_ps(name: str, a: Planar, s: complex,
-              reverse: bool) -> Optional[Planar]:
-    """Planar x python-scalar op (scalar on the right unless ``reverse``);
-    None when the half layout cannot represent the (non-hermitian)
-    result — complex scalars and pow break the implied mirror."""
-    half = a.fourstep is not None and a.fourstep[2]
-    if half and (s.imag != 0 or not _herm_preserved(name)):
-        return None
+def binary_ps(name: str, a: Planar, s: complex, reverse: bool) -> Planar:
+    """Planar x python-scalar op (scalar on the right unless
+    ``reverse``)."""
     fdt = np.float32 if a.re.dtype == jnp.float32 else np.float64
     br = fdt(s.real)
     bi = fdt(s.imag)
     if reverse:
-        yr, yi = _sp_jit(br, bi, a.re, a.im, name=name)
+        yr, yi = _pp_jit(br, bi, a.re, a.im, name=name)
     else:
         yr, yi = _pp_jit(a.re, a.im, br, bi, name=name)
-    herm = half or (a.hermitian and s.imag == 0 and _herm_preserved(name))
-    return Planar(yr, yi, a.shape, hermitian=herm, fourstep=a.fourstep)
-
-
-@partial(jax.jit, static_argnames=('name',))
-def _sp_jit(sr, si, ar, ai, *, name):
-    # scalar on the LEFT (reverse orientation): s <op> a
-    from .ops import pallas_map
-
-    shapes = ((), (), ar.shape, ai.shape)
-    dtypes = (ar.dtype,) * 4
-    if _herm_preserved(name) and pallas_map.eligible(shapes, dtypes):
-        return pallas_map.stream_map_multi(
-            lambda a, b, c, d: _complex_math(a, b, c, d, name),
-            (sr, si, ar, ai),
-            (ar.dtype, ar.dtype),
-        )
-    return _complex_math(sr, si, ar, ai, name)
+    return Planar(yr, yi, a.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -331,20 +133,11 @@ def neg_im(im):
     return -im
 
 
-@partial(jax.jit, static_argnames=('ne', 'shape'))
-def prefix_plane(p, *, ne, shape):
-    """One plane's logical prefix as a dense real array (XLA fuses the
-    slice into the reshape/consumer)."""
-    return _prefix(p, shape)
+@jax.jit
+def abs_planes(re, im):
+    return jnp.sqrt(re * re + im * im)
 
 
-@partial(jax.jit, static_argnames=('ne', 'shape'))
-def abs_planes(re, im, *, ne, shape):
-    fr = _prefix(re, shape)
-    fi = _prefix(im, shape)
-    return jnp.sqrt(fr * fr + fi * fi)
-
-
-@partial(jax.jit, static_argnames=('ne', 'shape'))
-def angle_planes(re, im, *, ne, shape):
-    return jnp.arctan2(_prefix(im, shape), _prefix(re, shape))
+@jax.jit
+def angle_planes(re, im):
+    return jnp.arctan2(im, re)

@@ -1,14 +1,15 @@
 """Profiler / Perfetto UX for dsc_tpu.
 
-TPU-native rebuild of the reference profiler (python/dsc/profiler.py):
+Rebuild of the reference profiler (python/dsc/profiler.py):
 ``start_recording`` / ``stop_recording(file)`` toggle tracing and dump
 Chrome trace-event JSON, and ``profile()`` is the context-manager wrapper.
 ``stop_recording`` can serve the trace over localhost and print a
 ui.perfetto.dev deep link exactly like the reference (profiler.py:35-44,
 technique credited there to JAX).
 
-Additions for TPU: ``profile(xprof_dir=...)`` also wraps the region in
-``jax.profiler.trace`` so device-level timelines (XLA ops, DMA, ICI) land in
+Addition: ``profile(xprof_dir=...)`` also wraps the region in
+``jax.profiler.trace`` so device-level timelines (XLA ops, copies,
+collectives) land in
 an xprof trace next to the dsc-level events (SURVEY §5.1 obligation).
 """
 

@@ -1,6 +1,6 @@
 """Tracing engine for dsc_tpu.
 
-TPU-native rebuild of the reference tracing engine
+Rebuild of the reference tracing engine
 (dsc/include/dsc_tracing.h, dsc/src/dsc_tracing.cpp).
 
 The reference gates tracing at compile time and records Begin/End events in a
@@ -127,8 +127,7 @@ def tensor_args(**tensors) -> Dict[str, Any]:
     """Capture shapes/dtypes/backend/nbytes like the reference per-op arg
     structs (dsc_tracing.h:20-163, :287-312 — events there carry tensor
     backends and data addresses; device placement + byte size are the
-    PJRT-world analog, and placement matters here because C64 is homed to
-    the CPU device on TPU hosts, interop.py)."""
+    PJRT-world analog)."""
     if not _record:
         # args are ignored when recording is off — skip the introspection
         # cost on the untraced hot path

@@ -4,8 +4,8 @@
 The dsc FFT family keeps the reference identity "sizes round up to the
 next power of two" (reference dsc.cpp:2023-2028). This tier instead
 evaluates the length-n DFT *exactly* for any n: powers of two ride the
-planar FFT engine directly (fourier/core.py — Stockham, four-step,
-streaming Pallas kernels), every other length rides Bluestein's identity
+planar FFT engine directly (fourier/core.py — Stockham, four-step),
+every other length rides Bluestein's identity
 nk = (n^2 + k^2 - (k-n)^2)/2 as one circular convolution at the next
 power of two >= 2n-1.
 
@@ -96,7 +96,7 @@ def dft_plan(n: int) -> Tuple[Tuple, Any]:
 
 def rdft_plan(n: int) -> Tuple[Tuple, Any]:
     """Plan for an exact length-n r2c transform: pow2 n uses the engine's
-    real plan (half-size packing / streaming, fourier/plan.py); other n
+    real plan (half-size packing, fourier/plan.py); other n
     shares the Bluestein c2c plan and slices the half spectrum."""
     if n < 1:
         raise RuntimeError(f'transforms: n ({n}) must be >= 1')

@@ -66,8 +66,7 @@ def _planes_of(x: Tensor):
     (models/short_time_fft.py:_as_batched_planar convention)."""
     if x.dtype.is_complex:
         pp = x._planar
-        if pp is not None and pp.fourstep is None and not pp.hermitian \
-                and pp.physical_ne == pp.ne and tuple(pp.re.shape) == x.shape:
+        if pp is not None and pp.shape == x.shape:
             xr, xi = pp.re, pp.im
         else:
             xj = x.jax
@@ -453,8 +452,8 @@ def rfftfreq(n: int, d: float = 1.0):
 def next_fast_len(target: int, real: bool = False) -> int:
     """Smallest length >= target that this engine transforms fastest.
 
-    The dsc planar engine is radix-2 (Stockham/four-step/streaming
-    Pallas, fourier/plan.py), so "fast" here means the next power of two
+    The dsc planar engine is radix-2 (Stockham/four-step,
+    fourier/plan.py), so "fast" here means the next power of two
     — unlike scipy's 5-smooth answer; Bluestein covers every other
     length at a constant-factor cost. ``real`` is accepted for signature
     parity (pow2 is optimal for both paths)."""
@@ -485,7 +484,7 @@ _workers_local = _threading.local()
 
 def get_workers() -> int:
     """Current workers-context value (scipy.fft.get_workers parity;
-    default 1). On TPU the XLA runtime owns intra-op parallelism, so the
+    default 1). The XLA runtime owns intra-op parallelism, so the
     value is advisory — honored as the API contract, not a thread pool."""
     return getattr(_workers_local, 'value', 1)
 
@@ -494,7 +493,7 @@ def get_workers() -> int:
 def set_workers(workers: int):
     """Context manager mirroring scipy.fft.set_workers: everything inside
     sees ``get_workers() == workers``. XLA already parallelizes every
-    transform across the chip's compute units; this exists so code
+    transform across the device's compute units; this exists so code
     written against scipy.fft ports over unchanged."""
     workers = int(workers)
     if workers == 0:

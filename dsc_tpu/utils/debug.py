@@ -3,8 +3,7 @@
 Rebuild of the reference's debug story (SURVEY §5.2, §5.5):
 - DSC_LOG_DEBUG-gated stderr logging (reference dsc.h:14-34) via the
   DSC_DEBUG env var or enable_debug_logging()
-- sanitizer analog for TPU: jax_debug_nans + Pallas interpreter mode
-  (the nan_guard context manager toggles both)
+- sanitizer analog: jax_debug_nans (the nan_guard context manager)
 """
 
 from __future__ import annotations
@@ -27,21 +26,14 @@ def log_debug(msg: str) -> None:
 
 
 @contextmanager
-def nan_guard(interpret_kernels: bool = False):
+def nan_guard():
     """Fail fast on NaNs inside jitted computations (the reference's
-    ASan/assert analog for numeric bugs). Optionally force Pallas kernels
-    through the interpreter for step-level debugging."""
+    ASan/assert analog for numeric bugs)."""
     import jax
 
     prev = jax.config.read('jax_debug_nans')
     jax.config.update('jax_debug_nans', True)
     try:
-        if interpret_kernels:
-            from jax.experimental.pallas import tpu as pltpu
-
-            with pltpu.force_tpu_interpret_mode():
-                yield
-        else:
-            yield
+        yield
     finally:
         jax.config.update('jax_debug_nans', prev)

@@ -24,7 +24,7 @@ import numpy as np
 from . import tracing
 from .dtype import DTYPE_TO_NP, Dtype
 from .ops import kernels as K
-from .tensor import Tensor, _creation_ctx
+from .tensor import Tensor
 
 
 @partial(jax.jit, static_argnames=('kind', 'n', 'dtype'))
@@ -58,15 +58,14 @@ def _window(kind: str, n: int, dtype: Dtype, beta=None) -> Tensor:
     np_dt = DTYPE_TO_NP[Dtype(dtype)]
     args = {'n': n} if beta is None else {'n': n, 'beta': beta}
     with tracing.trace_op(kind, 'op;creation', args) as tr:
-        with _creation_ctx(Dtype(dtype)):
-            if n < 1:
-                res = jnp.zeros((0,), np_dt)
-            elif n == 1:
-                res = jnp.ones((1,), np_dt)
-            elif beta is None:
-                res = _cosine_window(kind=kind, n=n, dtype=np_dt)
-            else:
-                res = _kaiser_window(jnp.float64(beta), n=n, dtype=np_dt)
+        if n < 1:
+            res = jnp.zeros((0,), np_dt)
+        elif n == 1:
+            res = jnp.ones((1,), np_dt)
+        elif beta is None:
+            res = _cosine_window(kind=kind, n=n, dtype=np_dt)
+        else:
+            res = _kaiser_window(jnp.float64(beta), n=n, dtype=np_dt)
         if tr:
             tr.result = res
     return Tensor._from_jax(res)
@@ -120,13 +119,12 @@ def bartlett(n: int, dtype: Dtype = Dtype.F32) -> Tensor:
         raise RuntimeError(f'bartlett window requires a real dtype, got {dtype}')
     np_dt = DTYPE_TO_NP[Dtype(dtype)]
     with tracing.trace_op('bartlett', 'op;creation', {'n': n}) as tr:
-        with _creation_ctx(Dtype(dtype)):
-            if n < 1:
-                res = jnp.zeros((0,), np_dt)
-            elif n == 1:
-                res = jnp.ones((1,), np_dt)
-            else:
-                res = _bartlett_window(n=n, dtype=np_dt)
+        if n < 1:
+            res = jnp.zeros((0,), np_dt)
+        elif n == 1:
+            res = jnp.ones((1,), np_dt)
+        else:
+            res = _bartlett_window(n=n, dtype=np_dt)
         if tr:
             tr.result = res
     return Tensor._from_jax(res)
@@ -143,13 +141,12 @@ def tukey(n: int, alpha: float = 0.5, dtype: Dtype = Dtype.F32) -> Tensor:
     np_dt = DTYPE_TO_NP[Dtype(dtype)]
     with tracing.trace_op('tukey', 'op;creation',
                           {'n': n, 'alpha': alpha}) as tr:
-        with _creation_ctx(Dtype(dtype)):
-            if n < 1:
-                res = jnp.zeros((0,), np_dt)
-            elif n == 1 or alpha == 0.0:
-                res = jnp.ones((max(n, 0),), np_dt)
-            else:
-                res = _tukey_window(jnp.float64(alpha), n=n, dtype=np_dt)
+        if n < 1:
+            res = jnp.zeros((0,), np_dt)
+        elif n == 1 or alpha == 0.0:
+            res = jnp.ones((max(n, 0),), np_dt)
+        else:
+            res = _tukey_window(jnp.float64(alpha), n=n, dtype=np_dt)
         if tr:
             tr.result = res
     return Tensor._from_jax(res)
@@ -482,8 +479,7 @@ def get_window(window, n: int, fftbins: bool = True,
     with tracing.trace_op('get_window', 'op;creation',
                           {'window': str(spec), 'n': n}) as tr:
         host = design_window(window, n, fftbins=fftbins)
-        with _creation_ctx(Dtype(dtype)):
-            res = jnp.asarray(host.astype(np_dt))
+        res = jnp.asarray(host.astype(np_dt))
         if tr:
             tr.result = res
     return Tensor._from_jax(res)
@@ -503,8 +499,7 @@ def _scipy_style_window(kind: str, n: int, params: tuple, sym: bool,
             host = _np_window(kind, n, params)
         else:
             host = _np_window(kind, n + 1, params)[:-1]
-        with _creation_ctx(Dtype(dtype)):
-            res = jnp.asarray(host.astype(np_dt))
+        res = jnp.asarray(host.astype(np_dt))
         if tr:
             tr.result = res
     return Tensor._from_jax(res)
@@ -642,8 +637,7 @@ def dpss(n: int, nw: float, kmax=None, dtype: Dtype = Dtype.F32) -> Tensor:
             host = _np_dpss_single(n, float(nw))
         else:
             host = _np_dpss(n, float(nw), k)
-        with _creation_ctx(Dtype(dtype)):
-            res = jnp.asarray(host.astype(np_dt))
+        res = jnp.asarray(host.astype(np_dt))
         if tr:
             tr.result = res
     return Tensor._from_jax(res)

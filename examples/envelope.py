@@ -3,7 +3,7 @@
 End-to-end demo of the spectral model layer (dsc_tpu.models.hilbert /
 resample) plus the dsc.map fusion tier: an amplitude-modulated carrier
 is demodulated by taking the analytic-signal envelope, the envelope is
-normalized with ONE fused streaming pass (dsc.map), and decimated 16x
+normalized with ONE fused pass (dsc.map), and decimated 16x
 with Fourier resampling. Recovered message is compared against the
 known modulator.
 """

@@ -1,4 +1,4 @@
-"""STFT spectrogram pipeline (BASELINE.json config 4): sliding-window rfft
+"""STFT spectrogram pipeline (BASELINE.md config 4): sliding-window rfft
 + |.|^2 + log over streaming audio, traced end-to-end with dsc.profile()."""
 
 import os

@@ -7,8 +7,8 @@ from setuptools import find_packages, setup
 setup(
     name='dsc_tpu',
     version='0.1.0',
-    description='TPU-native NumPy-compatible array framework '
-                '(dspcraft/dsc rebuilt for JAX/XLA/Pallas)',
+    description='NumPy-compatible array framework '
+                '(dspcraft/dsc rebuilt for JAX/XLA)',
     packages=find_packages(include=['dsc_tpu', 'dsc_tpu.*']),
     python_requires='>=3.10',
     install_requires=['numpy', 'jax'],

@@ -1,7 +1,7 @@
 """dsc.compile (fuse.py): whole-pipeline fusion over the public API.
 
 The reference has no fusion tier (it is eager by construction); these
-tests pin the documented semantics of the TPU-native extension: NumPy
+tests pin the documented semantics of the extension: NumPy
 stays the oracle (reference README.md:173-180), programs are cached per
 argument signature with bounded LRU eviction mirroring the FFT plan
 cache contract (dsc/src/dsc.cpp:182-267), and compiled regions are
@@ -67,25 +67,20 @@ def test_compile_planar_output_and_tuple_return():
     assert all_close(mag.numpy(), np.abs(want), atol=1e-2, rtol=1e-4)
 
 
-def test_compile_planar_input(monkeypatch):
+def test_compile_planar_input():
     # an eager planar spectrum Tensor crosses the compile boundary as planes
-    from dsc_tpu.fourier import config as fft_config
-
-    # force the streaming path (planar/hermitian-half storage) on the CPU
-    # test backend — interpret-mode kernels, same layout as on TPU
-    monkeypatch.setattr(fft_config, 'STREAM_MODE', 'on')
+    from dsc_tpu import transforms as tf
 
     @dsc.compile
     def inv(X):
         return dsc.irfft(X)
 
-    # 2^18 rides the large-transform planar path (planar.py); 2^11 returns
+    # the model tier returns planar storage (planar.py); dsc.rfft returns
     # dense complex — both must cross the compile boundary correctly
-    for n in (2**18, 2**11):
+    for n, planar in ((2**18, True), (2**11, False)):
         s = np.random.randn(n).astype(np.float32)
-        Xe = dsc.rfft(dsc.from_numpy(s))
-        if n == 2**18:
-            assert Xe._planar is not None  # planar storage, not dense
+        Xe = (tf.rfft if planar else dsc.rfft)(dsc.from_numpy(s))
+        assert (Xe._planar is not None) == planar
         got = inv(Xe).numpy()
         want = np.fft.irfft(np.fft.rfft(s.astype(np.float64)))
         assert np.abs(got - want).max() / np.abs(want).max() < 1e-4
@@ -249,17 +244,19 @@ def test_compile_decorator_forms():
 
 
 # -- mesh-compiled SPMD programs (fuse.py mesh=; the reference has no
-# distributed story, SURVEY §2.4 — this is the TPU-native scaling tier) --
+# distributed story, SURVEY §2.4 — this is the scaling tier) --
 
 import jax  # noqa: E402
 from jax.sharding import PartitionSpec as P  # noqa: E402
 
-needs_devices = pytest.mark.skipif(
-    len(jax.devices()) < 8, reason='needs 8 (virtual) devices'
-)
+
+@pytest.fixture
+def needs_devices():
+    if len(jax.devices()) < 8:
+        pytest.skip('needs 8 (virtual) devices')
 
 
-@needs_devices
+@pytest.mark.usefixtures('needs_devices')
 def test_compile_mesh_filterfft_batch_sharded():
     mesh = dsc.make_mesh((8, 1))
 
@@ -281,7 +278,7 @@ def test_compile_mesh_filterfft_batch_sharded():
     assert arr.addressable_shards[0].data.shape[0] == 2  # 16 / 8
 
 
-@needs_devices
+@pytest.mark.usefixtures('needs_devices')
 def test_compile_mesh_elementwise_and_reduction():
     mesh = dsc.make_mesh((4, 2), axis_names=('data', 'model'))
 
@@ -297,7 +294,7 @@ def test_compile_mesh_elementwise_and_reduction():
     assert all_close(got.numpy(), want, atol=1e-3)
 
 
-@needs_devices
+@pytest.mark.usefixtures('needs_devices')
 def test_compile_mesh_complex_planar_args():
     # plain planar complex tensors shard plane-wise with the same spec
     mesh = dsc.make_mesh((8, 1))
@@ -324,30 +321,9 @@ def test_compile_mesh_validation():
         f(dsc.from_numpy(np.ones(4, np.float32)))
 
 
-def test_xla_only_flag_gates_engines():
-    # the flag forces every engine gate off regardless of forced modes
-    from dsc_tpu import flags
-    from dsc_tpu.fourier import config
-    from dsc_tpu.ops import pallas_map
-
-    orig = config.PALLAS_MODE
-    config.PALLAS_MODE = 'on'
-    try:
-        assert config.use_pallas(np.complex64, 512)
-        with flags.xla_only():
-            assert not config.use_pallas(np.complex64, 512)
-            assert not config.use_stream(np.complex64, 1, 2**20)
-            assert not pallas_map.eligible(
-                ((4096, 4096),), (np.float32,))
-        assert config.use_pallas(np.complex64, 512)
-    finally:
-        config.PALLAS_MODE = orig
-
-
 def test_compile_mesh_shards_batched_model_pipeline():
     # a batched STFT -> mask -> ISTFT pipeline shards over the data axis
-    # with no model changes: dsc.compile(mesh=) traces the xla_only
-    # engines and GSPMD partitions the whole program
+    # with no model changes: GSPMD partitions the whole program
     from dsc_tpu.models import ISTFT, STFT
 
     b, n, frame, hop = 8, 2048, 128, 32
@@ -370,25 +346,27 @@ def test_compile_mesh_shards_batched_model_pipeline():
     assert np.abs(got.numpy() - want.numpy()).max() < 1e-4
 
 
-def test_compile_mesh_hermitian_arg_rejected():
-    # hermitian-half / fourstep planar layouts cannot carry a logical
-    # PartitionSpec; the error must be immediate and actionable
+def test_compile_mesh_planar_arg_sharded():
+    # a planar complex argument shards plane-wise with its logical
+    # PartitionSpec (both planes have the logical shape)
     import jax.numpy as jnp
 
     from dsc_tpu.planar import Planar
     from dsc_tpu.tensor import Tensor
 
     mesh = dsc.make_mesh((len(jax.devices()), 1))
-    re = jnp.zeros((8, 65), jnp.float32)
-    h = Tensor._from_planar(Planar(re, re, (8, 65), hermitian=True))
+    re = jnp.asarray(np.random.randn(8, 65).astype(np.float32))
+    h = Tensor._from_planar(Planar(re, -re, (8, 65)))
     f = dsc.compile(lambda z: z, mesh=mesh, in_specs=(P('data'),))
-    with pytest.raises(RuntimeError, match='hermitian'):
-        f(h)
+    got = f(h)
+    assert got._planar is not None
+    assert len(got._planar.re.sharding.device_set) == len(jax.devices())
+    assert all_close(got.numpy(), np.asarray(re) * (1 - 1j))
 
 
-@needs_devices
+@pytest.mark.usefixtures('needs_devices')
 def test_compile_mesh_chained_sharded_resident():
-    # VERDICT r4 #6: the sharded output of one compiled call feeds the
+    # the sharded output of one compiled call feeds the
     # next call directly — no gather to replicated, no host round-trip.
     # A pre-sharded argument with no explicit in_spec keeps its placement.
     from jax.sharding import NamedSharding

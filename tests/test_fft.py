@@ -1,5 +1,5 @@
 """FFT engine vs np.fft (reference test_ops.py:458-523) plus plan-cache and
-large-N four-step coverage (BASELINE.json configs)."""
+large-N four-step coverage (BASELINE.md configs)."""
 
 import random
 
@@ -92,7 +92,7 @@ def test_fft_large_four_step():
 
 def test_plan_cache_lru_stress():
     # >16 distinct plans must keep working via LRU eviction
-    # (reference dsc.cpp:182-267; BASELINE.json config 3)
+    # (reference dsc.cpp:182-267; BASELINE.md config 3)
     fft_plan.clear_plans()
     sizes = [2**k for k in range(3, 12)]  # 9 sizes x complex/real = 18 plans
     for n in sizes:

@@ -352,7 +352,7 @@ def test_fuzz_compile_equivalence(seed):
     )
 
 
-# -- dsc.map raw-table equivalence fuzz ---------------------------------------
+# -- dsc.map equivalence fuzz ---------------------------------------------
 
 _MAP_UNARY = [
     ('cos', dsc.cos, np.cos),
@@ -370,44 +370,36 @@ _MAP_UNARY = [
 
 @pytest.mark.parametrize('seed', range(8))
 def test_fuzz_dsc_map_equivalence(seed):
-    """Random elementwise bodies through dsc.map (streaming kernel, raw
-    unjitted op tables) must match the same chain applied eagerly through
-    the public ops AND the NumPy oracle."""
-    import dsc_tpu.ops.pallas_map as pm
-
+    """Random elementwise bodies through dsc.map (one fused program) must
+    match the same chain applied eagerly through the public ops AND the
+    NumPy oracle."""
     rng = np.random.default_rng(4200 + seed)
-    old = pm.MODE, pm.CHUNK_ROWS, pm.MIN_ELEMS
-    pm.MODE, pm.CHUNK_ROWS, pm.MIN_ELEMS = 'on', 64, 1024
-    try:
-        ne = int(rng.choice([64 * 128 * 2, 64 * 128 * 3 + 1024]))
-        a = rng.uniform(-1.5, 1.5, ne).astype(np.float32)
-        b = rng.uniform(-1.5, 1.5, ne).astype(np.float32)
-        sc = float(rng.uniform(-1.0, 1.0))
-        steps = [
-            _MAP_UNARY[int(rng.integers(0, len(_MAP_UNARY)))]
-            for _ in range(int(rng.integers(1, 4)))
-        ]
+    ne = int(rng.choice([64 * 128 * 2, 64 * 128 * 3 + 1024]))
+    a = rng.uniform(-1.5, 1.5, ne).astype(np.float32)
+    b = rng.uniform(-1.5, 1.5, ne).astype(np.float32)
+    sc = float(rng.uniform(-1.0, 1.0))
+    steps = [
+        _MAP_UNARY[int(rng.integers(0, len(_MAP_UNARY)))]
+        for _ in range(int(rng.integers(1, 4)))
+    ]
 
-        def body(x, y):
-            t = x * y + sc
-            for _, dfn, _nfn in steps:
-                t = dfn(t)
-            return t
+    def body(x, y):
+        t = x * y + sc
+        for _, dfn, _nfn in steps:
+            t = dfn(t)
+        return t
 
-        def np_body(x, y):
-            t = x * y + np.float32(sc)
-            for _, _dfn, nfn in steps:
-                t = nfn(t)
-            return t
+    def np_body(x, y):
+        t = x * y + np.float32(sc)
+        for _, _dfn, nfn in steps:
+            t = nfn(t)
+        return t
 
-        fused = dsc.map(body)
-        ad, bd = dsc.from_numpy(a), dsc.from_numpy(b)
-        got = fused(ad, bd)
-        assert next(iter(fused._programs.values()))[0] == 'stream', (
-            'fuzz case must exercise the streaming path')
-        eager = body(ad, bd)
-        names = [s[0] for s in steps]
-        assert all_close(got.numpy(), eager.numpy(), eps=1e-5), names
-        assert all_close(got.numpy(), np_body(a, b), eps=1e-4), names
-    finally:
-        pm.MODE, pm.CHUNK_ROWS, pm.MIN_ELEMS = old
+    fused = dsc.map(body)
+    ad, bd = dsc.from_numpy(a), dsc.from_numpy(b)
+    got = fused(ad, bd)
+    assert fused.n_programs == 1
+    eager = body(ad, bd)
+    names = [s[0] for s in steps]
+    assert all_close(got.numpy(), eager.numpy(), eps=1e-5), names
+    assert all_close(got.numpy(), np_body(a, b), eps=1e-4), names

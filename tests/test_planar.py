@@ -1,24 +1,20 @@
-"""Planar complex storage (planar.py) + the planar public FFT paths.
+"""Planar complex storage (planar.py) and the public FFT paths around it.
 
-Runs the streaming kernels in interpret mode on CPU (DSC_FFT_STREAM
-forced 'on'); the same code paths run compiled on TPU (bench.py and the
-DSC_TEST_TPU=1 smoke flow)."""
+The public dsc.fft/rfft family returns dense complex tensors; the model
+tier (here: the exact-length transforms, dsc_tpu.transforms) returns its
+spectra as planar float planes. These tests pin the values, dtypes and
+shapes of both at 2^18 points, and that elementwise ops keep planar
+operands planar."""
 
 import numpy as np
 import pytest
 
 import dsc_tpu as dsc
-from dsc_tpu.fourier import config as fft_config
+from dsc_tpu import transforms as tf
 
 from conftest import all_close
 
-N = 2**18  # 512 x 512 split — smallest size the streaming kernel supports
-
-
-@pytest.fixture(autouse=True)
-def force_stream(monkeypatch):
-    monkeypatch.setattr(fft_config, 'STREAM_MODE', 'on')
-    yield
+N = 2**18
 
 
 @pytest.fixture(scope='module')
@@ -31,64 +27,62 @@ def _rfft(x_np):
     return dsc.rfft(dsc.from_numpy(x_np))
 
 
+def _planar_rfft(x_np):
+    """A planar spectrum from the model tier."""
+    spec = tf.rfft(dsc.from_numpy(x_np))
+    assert spec._planar is not None
+    return spec
+
+
 def test_rfft_returns_planar_hermitian(sig):
-    spec = _rfft(sig)
-    assert spec.dtype == dsc.Dtype.C32
-    assert spec.shape == (N // 2 + 1,)
-    pp = spec._planar
-    assert pp is not None and pp.hermitian and pp.full_n == N
     ref = np.fft.rfft(sig)
-    err = np.abs(spec.numpy() - ref).max() / np.abs(ref).max()
-    assert err < 3e-5
+    for spec in (_rfft(sig), _planar_rfft(sig)):
+        assert spec.dtype == dsc.Dtype.C32
+        assert spec.shape == (N // 2 + 1,)
+        err = np.abs(spec.numpy() - ref).max() / np.abs(ref).max()
+        assert err < 3e-5
+    assert _rfft(sig)._planar is None  # the public engine is dense
 
 
 def test_planar_roundtrip_no_reconstruct(sig):
-    spec = _rfft(sig)
-    back = dsc.irfft(spec)
-    assert back.dtype == dsc.Dtype.F32
-    assert back.shape == (N,)
-    assert np.abs(back.numpy() - sig).max() < 1e-4
+    for spec in (_rfft(sig), _planar_rfft(sig)):
+        back = dsc.irfft(spec)
+        assert back.dtype == dsc.Dtype.F32
+        assert back.shape == (N,)
+        assert np.abs(back.numpy() - sig).max() < 1e-4
 
 
 def test_planar_pow_drops_hermitian(sig):
-    # pow on spectra runs the exp(b*log a) plane formula; hermitian must
-    # NOT survive (log's branch cut breaks the mirror for negative-real
-    # spectrum values). A half-T spectrum cannot even represent the
-    # result and densifies; a natural planar keeps planes with the flag
-    # dropped.
-    spec = _rfft(sig)
-    sq = dsc.power(spec, 2.0)
-    pp = sq._planar
-    assert pp is None or not pp.hermitian
+    # pow on spectra runs the exp(b*log a) formula on dense and planar
+    # storage alike; planar operands stay planar
     ref = np.fft.rfft(sig).astype(np.complex64) ** 2.0
-    got = sq.numpy()
     denom = np.abs(ref).max()
-    assert np.abs(got - ref).max() / denom < 1e-4
-    # natural hermitian-full (batched) spectra keep planes through pow
-    # with the flag dropped — the planar pow formula path
+    for spec in (_rfft(sig), _planar_rfft(sig)):
+        sq = dsc.power(spec, 2.0)
+        assert (sq._planar is None) == (spec._planar is None)
+        assert np.abs(sq.numpy() - ref).max() / denom < 1e-4
+    # batched spectra
     xb = np.stack([sig, sig[::-1].copy()])
-    specb = dsc.rfft(dsc.from_numpy(xb))
-    sqb = dsc.power(specb, 2.0)
-    ppb = sqb._planar
-    assert ppb is not None and not ppb.hermitian
     refb = np.fft.rfft(xb, axis=-1).astype(np.complex64) ** 2.0
+    sqb = dsc.power(_planar_rfft(xb), 2.0)
+    assert sqb._planar is not None
     assert np.abs(sqb.numpy() - refb).max() / np.abs(refb).max() < 1e-4
 
 
 def test_planar_binary_ops_stay_planar(sig):
     rng = np.random.default_rng(8)
     ker = rng.standard_normal(N).astype(np.float32)
-    sa, sb = _rfft(sig), _rfft(ker)
+    sa, sb = _planar_rfft(sig), _planar_rfft(ker)
     prod = sa * sb
-    assert prod._planar is not None and prod._planar.hermitian
+    assert prod._planar is not None
     ref = np.fft.rfft(sig) * np.fft.rfft(ker)
     assert np.abs(prod.numpy() - ref).max() / np.abs(ref).max() < 1e-4
-    # the filterFFT chain: multiply then invert, all planar
-    conv = dsc.irfft(prod)
+    # the filterFFT chain: multiply then invert
     ref_conv = np.fft.irfft(ref)
     conv_scale = max(np.abs(ref_conv).max(), 1.0)
-    assert np.abs(conv.numpy() - ref_conv).max() / conv_scale < 1e-4
-    # add/sub/div keep hermitian too
+    for p in (prod, _rfft(sig) * _rfft(ker)):
+        conv = dsc.irfft(p)
+        assert np.abs(conv.numpy() - ref_conv).max() / conv_scale < 1e-4
     # op-level oracle: compare against NumPy applied to the SAME operand
     # values (comparing against np.fft quotients would measure FFT error
     # amplification near small denominators, not the op)
@@ -99,63 +93,60 @@ def test_planar_binary_ops_stay_planar(sig):
         (lambda a, b: a / b, np.true_divide),
     ]:
         got = op(sa, sb)
-        assert got._planar is not None and got._planar.hermitian
-        want = npop(na, nb)
-        assert all_close(got.numpy(), want)
+        assert got._planar is not None
+        assert all_close(got.numpy(), npop(na, nb))
+    # planar x dense mixes densify with the same values
+    mixed = sa * _rfft(ker)
+    assert mixed._planar is None
+    assert np.abs(mixed.numpy() - ref).max() / np.abs(ref).max() < 1e-4
 
 
 def test_planar_scalar_ops(sig):
-    spec = _rfft(sig)
+    spec = _planar_rfft(sig)
     ref = np.fft.rfft(sig)
     scale = np.abs(ref).max()
-    # real scalar preserves the hermitian flag
     half = spec * 0.5
-    assert half._planar is not None and half._planar.hermitian
+    assert half._planar is not None
     assert np.abs(half.numpy() - ref * 0.5).max() / scale < 1e-4
     # reversed orientation
     rsub = 1.0 - spec
     assert rsub._planar is not None
     assert np.abs(rsub.numpy() - (1.0 - ref)).max() / scale < 1e-4
-    # complex scalar breaks the conjugate-mirror property. A half-T
-    # spectrum cannot represent that, so the op densifies; a natural
-    # hermitian-full planar would keep planes with hermitian dropped.
-    # Either way the VALUES are right and irfft takes the
-    # reconstruction fallback.
+    # complex scalars stay on the planes too
     rot = spec * 1j
-    rp = rot._planar
-    assert rp is None or not rp.hermitian
+    assert rot._planar is not None
     assert np.abs(rot.numpy() - ref * 1j).max() / scale < 1e-4
     back = dsc.irfft(rot)
     assert np.abs(back.numpy() - np.fft.irfft(ref * 1j)).max() < 1e-3
 
 
 def test_planar_unary_ops(sig):
-    spec = _rfft(sig)
     ref = np.fft.rfft(sig)
     scale = np.abs(ref).max()
-    c = dsc.conj(spec)
-    assert c._planar is not None and c._planar.hermitian
-    assert np.abs(c.numpy() - np.conj(ref)).max() / scale < 3e-5
-    for fn, want in [
-        (dsc.real, ref.real),
-        (dsc.imag, ref.imag),
-        (dsc.absolute, np.abs(ref)),
-        (dsc.angle, np.angle(ref)),
-    ]:
-        got = fn(spec)
-        assert got.dtype == dsc.Dtype.F32
-        assert got.shape == (N // 2 + 1,)
-        tol = 1e-4 * scale if want is not ref.real and fn is not dsc.angle else 1e-4 * scale
-        if fn is dsc.angle:
-            # angle is ill-conditioned near |z|=0; compare via the phasor
-            assert all_close(np.exp(1j * got.numpy().astype(np.complex64)),
-                             np.exp(1j * want.astype(np.complex64)), eps=1e-2)
-        else:
-            assert np.abs(got.numpy() - want).max() / scale < 1e-4
+    for spec in (_rfft(sig), _planar_rfft(sig)):
+        c = dsc.conj(spec)
+        assert (c._planar is None) == (spec._planar is None)
+        assert np.abs(c.numpy() - np.conj(ref)).max() / scale < 3e-5
+        for fn, want in [
+            (dsc.real, ref.real),
+            (dsc.imag, ref.imag),
+            (dsc.absolute, np.abs(ref)),
+            (dsc.angle, np.angle(ref)),
+        ]:
+            got = fn(spec)
+            assert got.dtype == dsc.Dtype.F32
+            assert got.shape == (N // 2 + 1,)
+            if fn is dsc.angle:
+                # angle is ill-conditioned near |z|=0; compare via the phasor
+                assert all_close(
+                    np.exp(1j * got.numpy().astype(np.complex64)),
+                    np.exp(1j * want.astype(np.complex64)), eps=1e-2)
+            else:
+                assert np.abs(got.numpy() - want).max() / scale < 1e-4
 
 
 def test_planar_materialization_fallbacks(sig):
-    spec = _rfft(sig)
+    spec = _planar_rfft(sig)
     ref = np.fft.rfft(sig)
     # indexing materializes dense complex
     assert abs(complex(spec[0]) - ref[0]) / np.abs(ref).max() < 1e-4
@@ -174,39 +165,38 @@ def test_planar_materialization_fallbacks(sig):
 
 
 def test_batched_planar_paths(sig):
-    # batched last-axis transforms ride the streaming kernel too
     b = 2
     xs = np.stack([sig, sig[::-1].copy()])
-    spec = dsc.rfft(dsc.from_numpy(xs))
-    assert spec.shape == (b, N // 2 + 1)
-    pp = spec._planar
-    assert pp is not None and pp.hermitian and pp.re.shape == (b, N)
     ref = np.fft.rfft(xs, axis=-1)
-    assert np.abs(spec.numpy() - ref).max() / np.abs(ref).max() < 3e-5
-    back = dsc.irfft(spec)
-    assert back.shape == (b, N)
-    assert np.abs(back.numpy() - xs).max() < 1e-4
-    # batched complex fft, planar in/out
+    for spec in (dsc.rfft(dsc.from_numpy(xs)), _planar_rfft(xs)):
+        assert spec.shape == (b, N // 2 + 1)
+        assert np.abs(spec.numpy() - ref).max() / np.abs(ref).max() < 3e-5
+        back = dsc.irfft(spec)
+        assert back.shape == (b, N)
+        assert np.abs(back.numpy() - xs).max() < 1e-4
+    # batched complex fft
     xc = (xs[0] + 1j * xs[1]).astype(np.complex64)
     xcb = np.stack([xc, 2 * xc])
     y = dsc.fft(dsc.from_numpy(xcb))
-    assert y._planar is not None
+    assert y.dtype == dsc.Dtype.C32 and y.shape == (b, N)
     refc = np.fft.fft(xcb, axis=-1)
     assert np.abs(y.numpy() - refc).max() / np.abs(refc).max() < 3e-5
 
 
 def test_planar_fft_ifft_chain(sig):
     x = (sig + 1j * sig[::-1]).astype(np.complex64)
-    t = dsc.from_numpy(x)
-    y = dsc.fft(t)
-    assert y._planar is not None and not y._planar.hermitian
     ref = np.fft.fft(x)
+    y = dsc.fft(dsc.from_numpy(x))
     assert np.abs(y.numpy() - ref).max() / np.abs(ref).max() < 3e-5
-    # planar input -> planar inverse, no complex materialization between
     back = dsc.ifft(y)
-    assert back._planar is not None
+    assert back.dtype == dsc.Dtype.C32
     assert np.abs(back.numpy() - x).max() < 1e-3
-    # real input through fft: planar real-input phase A
+    # planar input (model-tier spectrum) through the public engine
+    yp = tf.fft(dsc.from_numpy(x))
+    assert yp._planar is not None
+    backp = dsc.ifft(yp)
+    assert np.abs(backp.numpy() - x).max() < 1e-3
+    # real input through fft
     yr = dsc.fft(dsc.from_numpy(sig))
     refr = np.fft.fft(sig)
     assert np.abs(yr.numpy() - refr).max() / np.abs(refr).max() < 3e-5
